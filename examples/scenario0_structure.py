@@ -2,7 +2,7 @@
 """Scenario-0 structural analysis: why the discrete action space cannot
 beat rule-based control, and what the continuous ceiling is.
 
-Captured evidence behind RESULTS_TRAINING.md's scenario-0 claims:
+What it computes:
 
 * the two discrete priority orderings and price-threshold mixtures of
   them never beat battery-first RBC (holding charge blocks absorbing the
@@ -29,6 +29,9 @@ def main():
     parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--steps", type=int, default=8758)
     args = parser.parse_args()
+    from pymgrid_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cpu:
         import jax
 

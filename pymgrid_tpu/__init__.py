@@ -1,8 +1,8 @@
-"""pymgrid_tpu: a TPU-native microgrid simulation engine.
+"""pymgrid_tpu: a compiled microgrid simulation engine.
 
 Drop-in API mirror of Total-RD/pymgrid (host layer) plus a compiled
 JAX/XLA engine (:mod:`pymgrid_tpu.core`) that batches thousands of microgrids
-stepping in lockstep on TPU, sharded over device meshes
+stepping in lockstep on an accelerator, sharded over device meshes
 (:mod:`pymgrid_tpu.parallel`).
 """
 from pymgrid_tpu.version import __version__

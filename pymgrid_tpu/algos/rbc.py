@@ -6,7 +6,7 @@ step in a fixed priority order (lowest marginal cost first by default).
 ``run`` executes on the host layer; ``run_compiled`` executes the identical
 policy inside the compiled engine as one ``lax.scan`` program
 (:mod:`pymgrid_tpu.core.rollout`), returning the same log DataFrame — this is
-the TPU fast path for benchmark sweeps.
+the fast path for benchmark sweeps.
 """
 from copy import deepcopy
 

@@ -11,7 +11,7 @@ clipping/cost semantics (:mod:`pymgrid_tpu.core.physics`) — as a single
 traced XLA program with no data-dependent Python control flow.  It composes
 with ``jax.jit``, ``jax.vmap`` (replica batching) and ``lax.scan`` (time).
 
-Design notes (TPU):
+Design notes:
 
 * All per-step work is elementwise/gather on tiny operands; XLA fuses the
   whole step into one kernel.  Time series stay in HBM as ``(n, T+pad, f)``
@@ -368,9 +368,9 @@ def make_step_fn(spec, normalized=False, obs_layout="log"):
         single rounding; numpy (the reference) always rounds the product.  An
         optimization barrier pins the op ordering; CPU parity runs must also
         set ``XLA_FLAGS=--xla_cpu_max_isa=AVX`` (pre-FMA ISA) since LLVM can
-        still contract barrier-pinned scalars.  The float32 TPU fast path is
-        left barrier-free — FMA there is a accuracy win, and parity at f32 is
-        statistical, not bitwise.
+        still contract barrier-pinned scalars.  The float32 fast path is
+        left barrier-free — FMA there is an accuracy win, and parity at f32
+        is statistical, not bitwise.
         """
         return lax.optimization_barrier(x) if strict_fp else x
 
@@ -423,8 +423,8 @@ def make_step_fn(spec, normalized=False, obs_layout="log"):
 
         def log_window(ref):
             """Realized forecast window for the log row — from the fused
-            table gather when tabulated (per-replica window gathers
-            scalarize into while-loops on TPU), dynamic otherwise."""
+            table gather when tabulated (one row gather instead of
+            per-replica window gathers), dynamic otherwise."""
             if logfc_row is not None and (ref.name, ref.num) in logfc_layout:
                 off, width = logfc_layout[(ref.name, ref.num)]
                 return logfc_row[off : off + width].reshape(

@@ -1,4 +1,4 @@
-"""Batched linear programming on TPU: a PDLP-style first-order solver.
+"""Batched linear programming on the device: a PDLP-style first-order solver.
 
 Solves batches of LPs sharing one constraint structure:
 
@@ -9,8 +9,8 @@ receding-horizon MPC shape (static block matrices, time-varying right-hand
 sides; see :mod:`pymgrid_tpu.algos.mpc`).  The method is primal-dual hybrid
 gradient (Chambolle-Pock) with Ruiz diagonal preconditioning and ergodic
 averaging, the same family as cuPDLP/PDLP.  Per iteration the whole batch
-does two dense matmuls against the shared constraint matrix — MXU work —so
-thousands of horizon problems solve concurrently per chip.
+does two dense matmuls against the shared constraint matrix, so thousands
+of horizon problems solve concurrently per device.
 
 Accuracy is first-order (~1e-4..1e-6 relative with the default iteration
 budget on MPC-sized problems); use scipy/HiGHS (:mod:`pymgrid_tpu.algos.mpc`)
@@ -50,7 +50,7 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
         A = [[K_eq, 0], [K_in, I]]
 
     Per iteration every problem forms the normal-equations matrix
-    ``A diag(x/z) A'`` (one batched matmul — MXU work), factorizes it with a
+    ``A diag(x/z) A'`` (one batched matmul), factorizes it with a
     batched Cholesky, and takes Mehrotra's predictor + corrector steps
     (reusing the factorization).  Converges to ~1e-8 relative accuracy in
     ~25-35 iterations independent of problem conditioning — unlike
@@ -60,15 +60,16 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
     ``newton_refine``: rounds of iterative refinement on each Newton solve
     (residual matvec + one extra pair of triangular solves, reusing the
     Cholesky factor).  The normal equations' conditioning is what caps
-    float32 accuracy, so refinement buys ~1-2 digits on the TPU fast path at
-    a few percent per-iteration cost.  Defaults to 1 for float32, 0 for
+    float32 accuracy, so refinement buys ~1-2 digits in float32 at a few
+    percent per-iteration cost.  Defaults to 1 for float32, 0 for
     float64.
 
-    ``matmul_precision``: TPU MXU pass count for every matmul traced here.
-    ``"float32"`` (6-pass, default) is the accuracy anchor — bfloat16
-    single-pass wrecks the normal equations (measured +8% realized MPC cost
-    on chip).  ``"tensorfloat32"`` (3-pass bf16) halves the MXU work; pair
-    it with ``newton_refine>=2`` when trading speed for the last digit.
+    ``matmul_precision``: precision of every matmul traced here (a
+    ``jax.default_matmul_precision`` name).  ``"float32"`` (default) is the
+    accuracy anchor: reduced-precision products (bfloat16, or the TF32 that
+    NVIDIA GPUs use for float32 by default) wreck the normal equations.
+    ``"tensorfloat32"`` trades the last digits for speed; pair it with
+    ``newton_refine>=2``.
     """
     import jax
     import jax.numpy as jnp
@@ -85,7 +86,7 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
     # (e.g. the 25 pymgrid scenarios' SOC recursions).  ``solve`` then takes
     # batches of B = k*S problems laid out in (k, S) blocks — problem
     # ``i*S + s`` uses matrix ``s`` — and every iteration runs one batched
-    # matmul/Cholesky over all of them (MXU work).
+    # matmul/Cholesky over all of them.
     if K_eq.ndim == 2:
         K_eq = K_eq[None]
         K_in = K_in[None]
@@ -133,10 +134,10 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
         return jnp.einsum("ksm,smn->ksn", y, A)
 
     def solve(c, b, h):
-        # TPU matmuls default to bfloat16 passes, which wrecks the normal
-        # equations (measured: +8% realized MPC cost at float32 on chip vs
-        # +0.03% on CPU with identical code).  Force true multi-pass matmul
-        # precision for everything traced here (incl. Cholesky internals).
+        # Accelerators default float32 matmuls to reduced-precision products
+        # (TF32 on NVIDIA GPUs), which wreck the normal equations.  Force
+        # the requested precision for everything traced here (incl.
+        # Cholesky internals).
         with jax.default_matmul_precision(matmul_precision):
             return _solve(c, b, h)
 
@@ -195,11 +196,10 @@ def make_batched_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64, x_scale=None
             L = jnp.linalg.cholesky(M)
 
             if solve_mode == "inverse":
-                # Explicit M^-1 once per iteration: TPU triangular solves
-                # are latency-bound custom calls, and Mehrotra + iterative
-                # refinement issues ~12 of them per iteration; ONE
-                # multi-RHS triangular pair (vs identity) turns every
-                # Newton solve into an MXU matvec.  The inverse's extra
+                # Explicit M^-1 once per iteration: Mehrotra + iterative
+                # refinement issues ~12 triangular solves per iteration;
+                # ONE multi-RHS triangular pair (vs identity) turns every
+                # Newton solve into a matvec.  The inverse's extra
                 # rounding is recovered by the refinement matvecs.
                 w = jax.scipy.linalg.solve_triangular(
                     L, jnp.broadcast_to(eye, M.shape), lower=True
@@ -395,10 +395,10 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         min c'x   s.t.   K_eq x = b,   lo(h) <= x <= hi(h)
 
     and the interior-point normal equations shrink from the slack form's
-    ``(me+mi) x (me+mi)`` (288x288 at H=24) to ``me x me`` (48x48).  On TPU
-    the Cholesky/triangular-solve custom calls are the IPM's latency floor
-    and cost ~22x less at 48 than at 288 (measured), which is what makes
-    the all-25 one-program MPC year tractable.
+    ``(me+mi) x (me+mi)`` (288x288 at H=24) to ``me x me`` (48x48): the
+    batched Cholesky and triangular solves, the IPM's per-iteration floor,
+    shrink with the matrix size, which is what makes the all-25
+    one-program MPC year tractable.
 
     Drop-in replacement for :func:`make_batched_ipm_solver`: same
     ``solve(c, b, h)`` signature — the static single-variable row structure
@@ -509,7 +509,7 @@ def make_batched_box_ipm_solver(K_eq, K_in, iters=35, dtype=np.float64,
         # variable a phantom ~2e-2-wide box the s/t update invariant then
         # preserved — e.g. ~640 units of free "genset" energy at
         # col_scale 6.4e4, which made infeasible off-patterns win the MILP
-        # enumeration with undershot objectives (r4's 5.3% chip-MPC drift).
+        # enumeration with undershot objectives.
         pin_tol = jnp.asarray(1e-5, dtype)
         pinned = (hi - lo) <= pin_tol * (1.0 + jnp.abs(hi))
         free = 1.0 - pinned.astype(dtype)

@@ -83,8 +83,7 @@ def make_lockstep_sweep_fn(spec, policy, n_steps, normalized=False):
     forecaster is present, the realized forecast) is a SHARED scan carry:
     time-dependent rows are fetched once per step and broadcast, rewards
     accumulate in the carry, and the program writes nothing per step —
-    the same contract as the Pallas kernel
-    (:mod:`pymgrid_tpu.ops.pallas_rollout`) but for ANY spec and policy.
+    for ANY spec and policy.
 
     Returns jitted ``(params, states) -> (final_states, cum_reward (B,))``
     where ``states`` is a batched engine state whose ``step`` entry is a
@@ -174,7 +173,7 @@ def _row_accessor(spec, params, t, jnp, lax, state=None):
     """``(kind, slot) -> current raw ts row`` at step ``t``.
 
     One fused lane-rich row-table gather when step-index tables are attached
-    (:mod:`pymgrid_tpu.core.tables`; the TPU fast path), per-slot
+    (:mod:`pymgrid_tpu.core.tables`; the fast path), per-slot
     ``dynamic_index`` otherwise.  A caller-prefetched ``state["table_row"]``
     (block-prefetch rollouts) takes precedence.  Values are
     bitwise-identical across all three paths.
@@ -360,18 +359,17 @@ def make_table_policy(spec, priority_lists):
             goal_t[a, k] = el.action
 
     # single stacked table [kinds | slots | goals]: ONE per-replica lookup
-    # instead of three (a vmapped gather costs ~0.36ms per 64k replicas on
-    # TPU regardless of row width).  For small action spaces the lookup is
-    # a one-hot matmul — MXU work instead of a gather, ~20x cheaper; values
-    # are tiny ints, exact in any matmul precision.
+    # instead of three.  For small action spaces the lookup is a one-hot
+    # matmul instead of a gather; values are tiny ints, exact in any matmul
+    # precision.
     stacked_table = np.concatenate([kind_t, slot_t, goal_t], axis=1)
     use_onehot = n_actions <= 512
 
     # Static (kind_id, slot) pairs, unrolled at trace time.  All per-position
     # work below selects among these with elementwise ``where`` — NO
     # traced-index gathers or scatters: a vmapped ``x[slot]`` / ``.at[slot]``
-    # with per-replica slots lowers to HLO gather/scatter, which costs ~100x
-    # on both CPU and TPU (measured; the r3 rl_fused 205k env-steps/s gap).
+    # with per-replica slots lowers to HLO gather/scatter, which is far
+    # slower than elementwise selects over a handful of static slots.
     ctrl_refs = [(KINDS[ref.kind], ref.slot) for ref in spec.controllable]
 
     def policy(params, state, action_idx):

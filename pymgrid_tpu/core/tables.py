@@ -1,4 +1,4 @@
-"""Precomputed step-index tables: the TPU fast path for t-dependent values.
+"""Precomputed step-index tables: the fast path for t-dependent values.
 
 Everything the engine reads per step that depends only on the step index
 ``t`` — raw current time-series rows, and the full normalized observation
@@ -11,9 +11,9 @@ at construction into two HBM-resident tables:
 
 The per-replica step then performs ONE lane-rich row gather per table
 instead of ~30 per-module ``dynamic_slice`` ops with 1- or 4-wide minor
-dimensions.  On TPU a vmapped tiny-minor-dim gather is catastrophically
-slow (the whole r3 ``rl_fused_steps_per_sec`` gap); an embedding-style
-row gather from a ``(T, ~128)`` table runs at HBM bandwidth.
+dimensions: a vmapped gather with a tiny minor dimension moves little
+data per index, while an embedding-style row gather from a ``(T, ~128)``
+table reads whole rows.
 
 Bitwise parity is guaranteed by construction: each table row is computed
 by the *engine's own* observation/row code (vmapped over ``arange(T)``),
@@ -70,9 +70,9 @@ def logfc_table_layout(spec):
     """Static column layout of the raw log-forecast segment:
     {(name, num): (offset, width=h*f)} over tabulable ts refs with a
     forecast horizon.  These are the UNNORMALIZED realized forecast windows
-    logged per step (``{comp}_forecast_j`` fields) — without tabulation the
-    per-replica window gathers scalarize into while-loops on TPU whenever
-    log rows are materialized (measured 30x on collect rollouts)."""
+    logged per step (``{comp}_forecast_j`` fields) — without tabulation
+    every materialized log row pays one per-replica window gather per
+    forecasting module."""
     layout, offset = {}, 0
     for ref in spec.log_order:
         if tabulable(spec, ref) and ref.forecast_horizon > 0:

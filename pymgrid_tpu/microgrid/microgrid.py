@@ -6,7 +6,7 @@ through a three-phase energy dispatch (fixed -> controllable -> flex) with
 per-module rewards and full logging.
 
 This host class is the single-instance, numpy-float64 semantic specification.
-The compiled TPU path (:mod:`pymgrid_tpu.core`) extracts a struct-of-arrays
+The compiled engine path (:mod:`pymgrid_tpu.core`) extracts a struct-of-arrays
 description from it (:func:`pymgrid_tpu.core.spec.extract_spec`) and runs the
 identical three-phase dispatch under ``jit``/``vmap``/``lax.scan``.
 """

@@ -8,7 +8,7 @@ exchange helper, observation bounds are tiled per horizon step, and the
 YAML state contract (``_current_step`` + state-dict keys) is what pins the
 attribute names.  Per-module scalar state is numpy float64; the compiled
 engine (:mod:`pymgrid_tpu.core`) extracts parameters into struct-of-arrays
-pytrees for batched TPU execution.
+pytrees for batched device execution.
 """
 import inspect
 from warnings import warn

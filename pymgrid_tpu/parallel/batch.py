@@ -40,7 +40,7 @@ class BatchedMicrogrid:
     batch_size : int
         Number of replicas stepping in lockstep.
     dtype : dtype, default float32
-        Engine dtype (float32 for TPU throughput; float64 for parity work).
+        Engine dtype (float32 for throughput; float64 for parity work).
     mesh : jax.sharding.Mesh or None
         If given, replicas shard along its ``batch`` axis; params replicate.
     """

@@ -1,11 +1,12 @@
-"""Multi-host execution over a pod slice.
+"""Multi-host execution.
 
 The reference has no distributed runtime (SURVEY.md §2.7); the new-build
 communication backend is JAX's: ``jax.distributed.initialize`` connects the
 hosts, the env batch shards along a global ``batch`` mesh axis, each host
 feeds its local replicas, and XLA emits the collectives (metric reductions
-ride ICI, host-crossing ones DCN).  Nothing here is TPU-count-specific — the
-same code runs one chip, one host, or N hosts.
+over the devices' interconnect, host-crossing ones over the network).
+Nothing here depends on the device count — the same code runs one device,
+one host, or N hosts.
 
 Typical multi-host program::
 

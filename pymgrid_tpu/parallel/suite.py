@@ -17,11 +17,6 @@ import numpy as np
 
 from pymgrid_tpu.core.engine import make_reset_fn, make_step_fn
 from pymgrid_tpu.core.spec import extract_spec
-from pymgrid_tpu.utils.layout import (
-    constrain_axis_major,
-    constrain_time_major,
-    pad_lanes,
-)
 
 __all__ = ["normalize_to_superset", "build_suite", "SuiteRunner"]
 
@@ -229,8 +224,7 @@ class SuiteRunner:
         # replica's time index is affine in the step count, so the rows for
         # BLK consecutive steps are ONE contiguous (BLK, W) slice per
         # replica instead of BLK separate row gathers — an ~BLK-fold cut in
-        # (8,128)-tile fetches, which bound the whole randomized-start
-        # rollout (docs: bench.py note).  Exactness across the wrap:
+        # gather count (docs: bench.py note).  Exactness across the wrap:
         # every episode ends at t = min(final_step) - 1, so rows
         # [max_start, max_start + BLK) are only ever *predicted* by
         # post-wrap steps; patching them with rows [i0, i0 + BLK) makes the
@@ -281,8 +275,7 @@ class SuiteRunner:
         # vmap replicas (shared config params), then vmap configs; the time
         # scan goes OUTSIDE both vmaps so stacked outputs are written as one
         # contiguous time-leading slab per step — scan-inside-vmap turns the
-        # per-step write into B*T scalarized update-slices (measured 30x on
-        # chip for collect rollouts)
+        # per-step write into B*T scalarized update-slices
         seq_mode = randomize_initial_step and auto_reset and not collect
         batched_step = jax.vmap(
             jax.vmap(step_one_seq if seq_mode else step_one,
@@ -345,20 +338,13 @@ class SuiteRunner:
                 acc = acc + out.reward + out.obs.sum(axis=-1)
                 if collect:
                     # flatten (cfg, B) -> one batch dim for the stacked scan
-                    # outputs: a 4-D episode buffer's per-step write
-                    # scalarizes into cfg*B tiny update-slices on TPU
-                    # (measured).  Buffers are stored FIELD-MAJOR,
-                    # (T, d, cfg*B) with the batch minor: the engine builds
-                    # obs/log rows by stacking ~330 per-field (cfg, B)
-                    # arrays, and stacking onto a new MINOR axis interleaves
-                    # them element-by-element — one concatenate op costing
-                    # 3.5 ms/step, 80% of the collect wall (traced on
-                    # chip).  With the stacked axis major the same
-                    # concatenate is d contiguous block copies; the API
-                    # layout is restored by one big transpose after the
-                    # scan.
-                    obs_fm = constrain_axis_major(out.obs, 2)
-                    log_fm = constrain_axis_major(out.log_row, 2)
+                    # outputs, so each step writes one 3-D slab instead of
+                    # cfg*B small update-slices.  Buffers are stored
+                    # FIELD-MAJOR, (T, d, cfg*B) with the batch minor, so
+                    # each of the ~330 per-field (cfg, B) arrays the engine
+                    # stacks into an obs/log row lands as one contiguous
+                    # block; the API layout is restored by one big
+                    # transpose after the scan.
                     flat = lambda x: x.reshape((n_cfg * B,) + x.shape[2:])
                     dt = jnp.dtype(spec.dtype)
                     scalars = jnp.stack(
@@ -367,9 +353,7 @@ class SuiteRunner:
                          flat(out.absorbed)], axis=0,
                     )
                     return (states, acc), (
-                        pad_lanes(flat(obs_fm).T),
-                        pad_lanes(flat(log_fm).T),
-                        pad_lanes(scalars),
+                        flat(out.obs).T, flat(out.log_row).T, scalars,
                     )
                 return (states, acc), None
 
@@ -377,13 +361,9 @@ class SuiteRunner:
                 body, (states, acc0), None, length=n_steps
             )
             if collect:
-                # ys are (T, d, cfg*B) field-major, cfg*B padded to lanes:
-                # constrain time-major, strip padding, transpose back to
-                # the (cfg, B, T, ...) API layout in one copy per buffer
-                nb = n_cfg * B
-
+                # ys are (T, d, cfg*B) field-major: transpose back to the
+                # (cfg, B, T, ...) API layout in one copy per buffer
                 def unpack(y, d):
-                    y = constrain_time_major(y, 0)[:, :d, :nb]
                     # (T, d, cfg, B) -> (cfg, B, T, d)
                     return jnp.transpose(
                         y.reshape(n_steps, d, n_cfg, B), (2, 3, 0, 1)

@@ -8,14 +8,37 @@ The reference has no tracing/profiling beyond tqdm bars; here:
   (``np.isclose(provided, consumed)``, the reference's only runtime check,
   ``microgrid/microgrid.py:321``) over engine rollout outputs,
 * :func:`checked_step` wraps an engine step with ``checkify`` so NaN and
-  balance violations surface as errors inside jit.
+  balance violations surface as errors inside jit,
+* :func:`gpu_name_and_power_limit` names the card a measurement ran on.
 """
 import contextlib
+import subprocess
 import time
 
 import numpy as np
 
-__all__ = ["trace", "Throughput", "check_balance", "checked_step"]
+__all__ = ["trace", "Throughput", "check_balance", "checked_step",
+           "gpu_name_and_power_limit"]
+
+
+def gpu_name_and_power_limit():
+    """The cards' name and power limit as ``nvidia-smi`` reports them, e.g.
+    ``"NVIDIA H100 80GB HBM3, 700.00 W"`` (distinct lines joined by
+    ``"; "``), or ``"not available"`` without ``nvidia-smi``.  A card set
+    below its maximum power runs slower under load, so every timing is
+    reported beside this string."""
+    try:
+        proc = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return "not available"
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip()]
+    if proc.returncode != 0 or not lines:
+        return "not available"
+    return "; ".join(dict.fromkeys(lines))
 
 
 @contextlib.contextmanager

@@ -63,7 +63,7 @@ def build_microgrid(namespace, params, include=("genset", "battery", "pv", "load
 
 def make_pair(seed=0, include=("genset", "battery", "pv", "load", "grid"),
               **kwargs):
-    """Return (reference_microgrid, tpu_microgrid) with identical params."""
+    """Return (reference_microgrid, our_microgrid) with identical params."""
     from helpers.reference import import_reference
     import pymgrid_tpu
     import pymgrid_tpu.modules as our_modules

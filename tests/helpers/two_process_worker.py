@@ -51,8 +51,7 @@ def main():
     assert float(total) == expected.sum()
 
     # ---- fused BatchedDiscreteEnv rollout under the 2-process mesh ----
-    # (VERDICT r3 item 8: the multi-device story gets parity + throughput
-    # on the same fused path users train on)
+    # (parity + throughput on the same fused path users train on)
     import time
 
     from pymgrid_tpu.envs import DiscreteMicrogridEnv

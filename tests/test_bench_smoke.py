@@ -1,10 +1,9 @@
 """Execute every bench.py code path at tiny sizes on CPU.
 
-Round 2 shipped a bench.py whose ``collect`` path had never been run and
-crashed on TPU (BENCH_r02.json rc=1).  This test runs ``bench.main()``
-end-to-end — suite rollout, BatchedDiscreteEnv RL path, and the
-log-materializing collect rollout — so the benchmark artifact cannot
-silently regress again.
+This test runs ``bench.main()`` end-to-end — suite rollout,
+BatchedDiscreteEnv RL paths, the lockstep sweep and the log-materializing
+collect rollout — so no benchmark path reaches the device without having
+run once.
 """
 import importlib.util
 import json
@@ -23,8 +22,8 @@ TINY = {
     "PYMGRID_BENCH_RL_BATCH": "8",
     "PYMGRID_BENCH_RL_STEPS": "3",
     "PYMGRID_BENCH_RL_LOOP_STEPS": "3",
-    "PYMGRID_BENCH_PALLAS_BATCH": "1024",
-    "PYMGRID_BENCH_PALLAS_STEPS": "5",
+    "PYMGRID_BENCH_SWEEP_BATCH": "16",
+    "PYMGRID_BENCH_SWEEP_STEPS": "5",
     "PYMGRID_BENCH_COLLECT_REPLICAS": "4",
     "PYMGRID_BENCH_COLLECT_STEPS": "5",
     "PYMGRID_BENCH_COLLECT_CONFIGS": "2",
@@ -40,9 +39,12 @@ def _load_bench():
 
 
 @pytest.fixture()
-def bench(monkeypatch):
+def bench(monkeypatch, tmp_path):
     for key, value in TINY.items():
         monkeypatch.setenv(key, value)
+    # a set cache directory makes bench.main() leave the test process's
+    # compilation-cache config alone (JAX read the variable at import)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("PYMGRID_BENCH_SKIP_EXTRAS", raising=False)
     return _load_bench()
 
@@ -56,11 +58,13 @@ def test_main_prints_complete_json(bench, capsys):
     assert result["unit"] == "env_steps/s/chip"
     for field in ("value", "vs_baseline", "rl_env_steps_per_sec",
                   "rl_fused_steps_per_sec", "continuous_env_steps_per_sec",
-                  "collect_steps_per_sec", "pallas_steps_per_sec",
-                  "engine_sweep_steps_per_sec"):
+                  "collect_steps_per_sec", "engine_sweep_steps_per_sec"):
         assert result[field] > 0, field
     assert result["n_configs"] == 2
     assert result["total_envs"] == 8
+    device = result["device"]
+    assert device["platform"] == "cpu" and device["count"] >= 1
+    assert device["kind"] and device["name_power_limit"]
 
 
 def test_collect_rollout_materializes_full_stepoutput(bench):

@@ -390,8 +390,8 @@ def test_engine_user_forecaster_off_end():
 def test_engine_user_forecaster_stochastic_bank():
     """np.random inside a user callable would freeze at trace time — the
     engine instead pre-samples one realization per step into an HBM bank
-    at spec extraction (VERDICT r4 missing item 4: the noise-bank
-    mechanism generalized to arbitrary stochastic callables).  Every
+    at spec extraction (the noise-bank mechanism generalized to arbitrary
+    stochastic callables).  Every
     engine episode replays that realization; parity with the host is
     distributional, not bitwise (docs/parity.md #13)."""
     import jax

@@ -282,9 +282,9 @@ def test_genset_refiner_chunking_invariant():
 
 
 def test_ipm_matmul_precision_variants():
-    """The matmul_precision knob (TPU MXU pass count) is accepted and, on
-    CPU (where every precision lowers to the same f32/f64 math), solves to
-    the same tolerance as the float32 default."""
+    """The matmul_precision knob is accepted and, on CPU (where every
+    precision lowers to the same f32/f64 math), solves to the same
+    tolerance as the float32 default."""
     K_eq, K_in, c, b, h = _random_lps()
     for prec in ("tensorfloat32", "bfloat16"):
         solver = make_batched_ipm_solver(
@@ -305,8 +305,7 @@ def test_box_ipm_pins_degenerate_variables():
     interior start (s0, t0 >= 1e-2) handed it a phantom ~2e-2-wide box the
     s/t update invariant preserved, so "solutions" carried free energy in
     the fixed variable, objectives undershot the true optimum, and
-    infeasible genset patterns won the MILP enumeration (r4's 5.3% chip
-    drift, scenario 8)."""
+    infeasible genset patterns won the MILP enumeration (scenario 8)."""
     from pymgrid_tpu.core.lp import make_batched_box_ipm_solver
 
     # min x0 + 2 x1  s.t.  x0 + x1 = 10,  x0 <= u0 (varies), x1 <= 20

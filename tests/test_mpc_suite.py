@@ -1,7 +1,7 @@
 """SuiteMPC: all scenarios' receding-horizon MPC as one batched program.
 
 Validates the heterogeneous batched-IPM path (stacked per-scenario
-constraint matrices, VERDICT r3 item 2) against the per-scenario
+constraint matrices) against the per-scenario
 :class:`BatchedMPC` controller it replaces for table generation.
 """
 import warnings
@@ -57,10 +57,10 @@ def test_suite_mpc_costs_close_to_batched(suite_and_batched):
 
 
 def test_suite_mpc_chip_mode_f32_parity():
-    """The published RESULTS_CHIP mode — f32, box IPM, enum_bits=3,
+    """The RESULTS_CHIP table's mode — f32, box IPM, enum_bits=3,
     iters=60, newton_refine=2 — vs the f64 SuiteMPC anchor over a
-    year-relevant closed-loop length (VERDICT r4 item 8: the chip table's
-    exact configuration must be CI-tested, not only chip-observed).
+    year-relevant closed-loop length (the table's exact configuration is
+    tested on the CPU, not only observed on the device).
 
     Also regression-gates the degenerate-box pinning fix (core/lp.py):
     before it, genset-off patterns carried a phantom ~2e-2 box that made

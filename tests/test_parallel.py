@@ -162,7 +162,7 @@ def test_batched_discrete_env_large_action_space_compiles():
 
 def test_batched_continuous_env_matches_host():
     """BatchedContinuousEnv stepping the host env's flat normalized actions
-    is bitwise-equal to ContinuousMicrogridEnv (VERDICT r2 item 7)."""
+    is bitwise-equal to ContinuousMicrogridEnv."""
     from pymgrid_tpu.envs import ContinuousMicrogridEnv
     from pymgrid_tpu.parallel import BatchedContinuousEnv
 

@@ -8,7 +8,7 @@ curve fits) it runs genuinely; with the global numpy RNG seeded identically,
 our ``algos/saa.py`` must replay the same sampler stream, the same per-sample
 horizon solves, and the same percentile selection — frame-level equality.
 
-This also turns RESULTS_SAA.md's "v1.2.2 presets never reach the samplers"
+This also turns the "v1.2.2 presets never reach the samplers"
 reading (reference ``DataGenerator.py:932-935``) into tested evidence.
 """
 import sys
@@ -101,7 +101,7 @@ def test_saa_sampler_stream_parity():
 @needs_ref
 def test_saa_frames_match_reference_grid():
     """>=50 receding-horizon steps: ControlOutput frames match the
-    reference's (VERDICT r2 item 4)."""
+    reference's."""
     import_reference()
     from pymgrid.algos.saa.saa import SampleAverageApproximation as RefSAA
 
@@ -171,7 +171,7 @@ def test_saa_presets_are_inert_for_samples():
     only alter the initial pv *forecast* frame, which SAA runs never read
     (reference ``DataGenerator.py:932-935``).  Under a fixed seed all three
     presets produce bit-identical samples — the evidence behind
-    RESULTS_SAA.md collapsing SAA-85/70/50 into one column."""
+    collapsing SAA-85/70/50 into one column."""
     import_reference()
     from pymgrid.algos.saa.saa import SampleAverageApproximation as RefSAA
 

@@ -124,7 +124,7 @@ def test_runtime_rbc_matches_host_all_scenarios():
 def test_randomized_initial_step_matches_shifted_host():
     """randomize_initial_step starts each replica at a distinct key-derived
     step and its trajectory equals the host RBC started at that step
-    (the honest-benchmark mode of bench.py; r4 phantom-throughput fix)."""
+    (the benchmark mode of bench.py: distinct per-replica work)."""
     import jax
     import jax.numpy as jnp
 

@@ -19,7 +19,7 @@ def test_a2c_training_runs():
     # match the same iterations dispatched one at a time
     _, _, history_chunked = run(iters=8, log_every=3)
     np.testing.assert_allclose(history_chunked, history, rtol=1e-5)
-    # continuation blocks resume the Adam moments (ADVICE r4): threading
+    # continuation blocks resume the Adam moments: threading
     # (theta, opt_state) through run() must differ from a cold restart
     theta2, opt_state2, _ = run(iters=4, seed=5, theta=theta,
                                 opt_state=opt_state)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Micro-profile the batched RL env path vs the suite rollout (CPU or TPU).
+"""Micro-profile the batched RL env path vs the suite rollout.
 
-Bisection harness for VERDICT r3 item 1: times the fused
-BatchedDiscreteEnv.rollout (with/without obs) and a suite-style rollout on
-the same scenario, printing env-steps/s for each variant.
+Times the fused BatchedDiscreteEnv.rollout (with/without obs) and a
+suite-style rollout on the same scenario, printing env-steps/s for each
+variant.  Runs on the default JAX device (the GPU where there is one);
+``--cpu`` pins the CPU backend.
 
-Usage: python tools/profile_env.py [--batch 2048] [--steps 100] [--tpu]
+Usage: python tools/profile_env.py [--batch 2048] [--steps 100] [--cpu]
 """
 import argparse
 import os
@@ -18,37 +19,33 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def timeit(fn, *args, repeats=3):
-    out = fn(*args)
-    # force execution + fetch
-    leaves = [x for x in _leaves(out) if x is not None]
-    np.asarray(leaves[0])
+    """Best wall seconds of ``fn(*args)``, waiting for the device."""
+    import jax
+
+    jax.block_until_ready(fn(*args))  # compile
     best = float("inf")
     for _ in range(repeats):
         t0 = time.perf_counter()
-        out = fn(*args)
-        leaves = [x for x in _leaves(out) if x is not None]
-        np.asarray(leaves[0])
+        jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
     return best
-
-
-def _leaves(tree):
-    import jax
-
-    return jax.tree.leaves(tree)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend")
     ap.add_argument("--scenario", type=int, default=0)
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    from pymgrid_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp

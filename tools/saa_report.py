@@ -2,7 +2,7 @@
 """Write RESULTS_SAA.md from the incremental sidecar, with anchor columns.
 
 The on-chip SAA table runs scenario-by-scenario and its sidecar
-(RESULTS_SAA.partial.json) survives TPU worker crashes; this writer turns
+(RESULTS_SAA.partial.json) survives interrupted runs; this writer turns
 whatever has completed into the published table, adding the two available
 independent anchors per scenario:
 
@@ -79,7 +79,7 @@ def write_report(rows, cfg, out=None):
         f"BatchedSAA (box-IPM solver, iters={cfg['ipm_iters']}, "
         f"newton_refine={cfg['newton_refine']}, enum_bits={cfg['enum_bits']}, "
         f"n_samples={cfg['saa_samples']}, percentile "
-        f"{cfg['saa_percentile']}), float32 on the TPU, one chunked "
+        f"{cfg['saa_percentile']}), float32 on the device, one "
         "lax.scan per scenario-year.  Sampled futures come from this "
         "package's seeded samplers (Markov-resampled outages included), so "
         "totals are comparable to, not bitwise reproductions of, the "
@@ -91,8 +91,8 @@ def write_report(rows, cfg, out=None):
         "sampled futures include outages, so the planner commits the "
         "genset defensively, while the deterministic formulation plans "
         "against an always-up grid (reference mpc.py:914) and realizes "
-        "loss-load during real outages — the same effect the learned RL "
-        "policy exploits (RESULTS_TRAINING.md).",
+        "loss-load during real outages — the same effect a learned RL "
+        "policy can exploit.",
         "",
         "| scenario | SAA cost (presets 85/70/50 identical) "
         "| chip det-MPC | host RBC | s/run |",
@@ -135,7 +135,7 @@ def write_report(rows, cfg, out=None):
     if missing:
         lines += [
             "",
-            f"Scenarios not yet captured (TPU time boundary; resume with "
+            f"Scenarios not yet captured (resume with "
             f"`tools/run_benchmarks.py --saa --resume`): {missing}.",
         ]
     out = out or REPO / "RESULTS_SAA.md"
